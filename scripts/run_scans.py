@@ -1,7 +1,6 @@
 """Reproduce the reference's scaling studies as committed artifacts.
 
-The analysis notebooks' core scientific results (SURVEY §4.3; VERDICT r4
-item 3) are trends of iterations-to-converge:
+The analysis notebooks' core scientific results (SURVEY §4.3) are trends of iterations-to-converge:
 
   A. vs mass, MG vs plain relaxation (0_submit cells 5-6 + notebook 1_:
      MG grows ~log(1/m) while pure GS grows ~1/m)

@@ -1,4 +1,4 @@
-"""Batched multi-RHS solve (DP analog) + pallas-dispatch knob."""
+"""Batched multi-RHS solve (DP analog)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +23,3 @@ def test_solve_batched_matches_individual():
     out = solve(hier, bs[0], cfg, max_iters=12)
     np.testing.assert_allclose(phi[0], out.phi, atol=1e-8)
 
-
-def test_pallas_knob_off_is_default_on_cpu():
-    """On CPU the pallas path must not be taken (platform gate)."""
-    from tpu_multigrid.ops import pallas_stencil as ps
-    assert not ps.use_pallas(jnp.complex64, 2, 64)  # cpu platform

@@ -72,3 +72,25 @@ def test_apply_D_unrolled_matches_einsum():
         np.testing.assert_allclose(np.asarray(apply_D_unrolled(D, v)),
                                    np.asarray(apply_D(D, v)),
                                    rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("L", [32, 48, 64])
+@pytest.mark.parametrize("st", ["wilson", "laplace"])
+@pytest.mark.parametrize("op", ["apply", "residual", "jacobi", "rbgs"])
+def test_level0_xla_path_matches_dense(op, st, L):
+    """The level-0 links-only XLA path (apply_u / residual_u / smooth_u,
+    what solver/cycles dispatches at level 0) against the dense reference
+    (ops/stencil, ops/smoothers) on the assembled operator, across
+    lattice sizes: the only level-0 path left on every platform."""
+    U, D, v = _setup(st, L=L, seed=L)
+    r = _setup(st, L=L, seed=L + 1)[2]
+    if op == "apply":
+        got, ref = gs.apply_u(st, U, 0.1, v), stencil.apply_D(D, v)
+    elif op == "residual":
+        got = gs.residual_u(st, U, 0.1, v, r)
+        ref = stencil.residual(D, v, r)
+    else:
+        got = gs.smooth_u(st, U, 0.1, v, r, 3, op)
+        ref = smoothers.smooth(D, stencil.site_inverse(D[0]), v, r, 3, op)
+    err = float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
+    assert err < 1e-12, err

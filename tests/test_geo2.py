@@ -79,7 +79,7 @@ def test_quad_prolong_adjoint_of_restrict():
         assert abs(float(lhs - rhs)) < 1e-12
 
 
-# --- convergence (TPU-mode smoother) ---------------------------------------
+# --- convergence (parallel rbgs smoother) ----------------------------------
 
 def test_geo2_ntl_converges_rbgs():
     cfg = geo.Geo2Config(L=32, m=0.5, nlevels=3, num_iters=4, t_flag=True,

@@ -70,7 +70,7 @@ def test_geo_spacing_scales():
 def test_geo_solve_ir_matches_f64():
     """Mixed-precision defect correction (f32 V-cycles, f64 outer loop)
     contracts like the pure-f64 solve and reaches the same solution well
-    below the f32 floor (the TPU-native gen-1 mode; bench geo2048)."""
+    below the f32 floor (the gen-1 mode of bench geo2048)."""
     import numpy as np
     from tpu_multigrid.solver.geometric import (GeoConfig, geo_source,
                                                 geo_solve, geo_solve_ir)

@@ -56,7 +56,7 @@ def test_gen1_trajectory_match(L, m, nl, ni, thr):
 
 @needs_ref
 def test_gen1_trajectory_match_L256():
-    """Reference-scale-closer golden (VERDICT r3 task 4 companion): 256²,
+    """Reference-scale-closer golden (companion of the 2048² headline): 256²,
     6 levels, the reference's own mass scaled to keep m·L at its headline
     value (0.002·2048). Trajectory match to the reference's 6-digit print
     precision while residuals are far from the fp plateau."""

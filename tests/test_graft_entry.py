@@ -1,8 +1,7 @@
 """Regression tests for the driver entry points (__graft_entry__.py).
 
-The round-2 multichip dry run regressed because utils/compile.aot_call
-cached executables without input shardings in the key (VERDICT.md round 2,
-weak #1).  These tests pin (a) the exact entry-point sequence the driver
+The multichip dry run once regressed because utils/compile.aot_call
+cached executables without input shardings in the key. These tests pin (a) the exact entry-point sequence the driver
 runs, and (b) the aot_call cache-key mechanism itself.
 """
 import sys
@@ -36,7 +35,7 @@ def test_entry_then_dryrun_no_cache_collision():
 
 def test_aot_call_sharding_in_key():
     """aot_call must compile distinct executables for single-device vs
-    mesh-sharded args even under an identical caller key (VERDICT task 7)."""
+    mesh-sharded args even under an identical caller key."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     from tpu_multigrid.utils import compile as uc
 

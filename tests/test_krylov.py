@@ -73,8 +73,8 @@ def test_adjoint_stencil_identities():
 def test_cgnr_solves_indefinite_wilson():
     """CGNR converges on the truly indefinite operator (m well below m_c
     on a beta=32 ensemble) where the stationary cycle diverges and
-    MR stalls — the reference's literal m=-0.07 regime (VERDICT r4
-    item 4b; full-scale artifact: bench_rungs/wilson_m007.json)."""
+    MR stalls — the reference's literal m=-0.07 regime (full-scale run:
+    scripts/wilson_m007.py part B)."""
     from tpu_multigrid.solver.krylov import cgnr_solve
 
     theta = gauge.heatbath_ensemble(16, 32.0, 60, 7)
@@ -92,8 +92,7 @@ def test_cgnr_solves_indefinite_wilson():
 
 def test_cgnr_ir_reaches_f64_accuracy_from_c64_inner():
     """cgnr_solve_ir: c64 inner solves + f64-plane outer defect
-    correction reach 1e-10 true f64 residual (the TPU path for 1e-8 on
-    C128-rejecting compilers)."""
+    correction reach 1e-10 true f64 residual."""
     from tpu_multigrid.solver.krylov import cgnr_solve_ir
     from tpu_multigrid.utils.xfer import device_complex
 

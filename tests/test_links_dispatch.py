@@ -1,10 +1,8 @@
 """Production-solve dispatch of the level-0 links-only fast path.
 
-The VERDICT-r4 integration gap: the spin-projected form existed but the
-cycle dispatch (solver/cycles._relax / residual) never used it. These
-tests pin that (a) a hierarchy carrying gauge links routes wilson level-0
-smoother sweeps and residuals through ops/gauge_stencil (XLA twin of the
-Pallas kernels) and (b) the solve trajectory is the dense trajectory —
+These tests pin that (a) a hierarchy carrying gauge links routes wilson
+level-0 smoother sweeps and residuals through ops/gauge_stencil and
+(b) the solve trajectory is the dense trajectory —
 identical math (reference level.h:100-128 smoother, :155-172 hopping
 structure), different streaming representation.
 """

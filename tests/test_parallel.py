@@ -161,7 +161,7 @@ def test_sharded_setup_matches_single_device(stencil_name, rng):
 
 def test_sharded_smoother_downgrade_warns():
     """gs_lex/chebyshev silently ran as rbgs in the sharded cycle; the
-    downgrade must now be surfaced (VERDICT r2 weak #6)."""
+    downgrade must now be surfaced."""
     import warnings
     from tpu_multigrid.config import MGConfig
     from tpu_multigrid.parallel import sharded

@@ -203,10 +203,10 @@ def test_iterative_refinement_matches_f64_solve():
 
 
 def test_ir_planes_mode_matches_c128():
-    """solve_ir planes mode (F64 real/imag plane programs — required on
-    TPUs whose compiler rejects C128; see apply_D_planes) is bit-level
-    equivalent to the C128 path, with a c64-built hierarchy + exact c128
-    D_outer (the TPU-fast setup split)."""
+    """solve_ir planes mode (F64 real/imag plane programs; see
+    apply_D_planes) is bit-level equivalent to the C128 path, with a
+    c64-built hierarchy + exact c128 D_outer (c64 setup, c128 outer
+    step)."""
     from tpu_multigrid.solver.driver import solve_ir
     L = 32
     cfg64 = MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=2, ntl=True,

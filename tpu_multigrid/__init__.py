@@ -1,6 +1,6 @@
-"""tpu_multigrid — a TPU-native adaptive multigrid solver library for 2D
-lattice operators (gauged Laplace and Wilson-Dirac), built from scratch in
-JAX/XLA/Pallas with the capabilities of the reference research code
+"""tpu_multigrid — an adaptive multigrid solver library for 2D lattice
+operators (gauged Laplace and Wilson-Dirac), built from scratch in JAX/XLA
+with the capabilities of the reference research code
 `vmos1/2d_multigrid` (see SURVEY.md).
 
 Quick start::

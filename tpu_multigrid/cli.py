@@ -34,8 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "selects the single-interpolation variant)")
     p.add_argument("--geo-ir", action="store_true", dest="geo_ir",
                    help="geo mode: mixed-precision solve (f32 V-cycles "
-                        "inside an f64 defect-correction loop — the "
-                        "TPU-native form; f64 is emulated on TPU)")
+                        "inside an f64 defect-correction loop)")
     p.add_argument("--L", type=int, default=64)
     p.add_argument("--stencil", choices=["laplace", "wilson"],
                    default="wilson")
@@ -77,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="outer iteration: stationary MG cycles (reference "
                         "behavior), MG-preconditioned flexible GMRES, "
                         "mixed-precision iterative refinement (f64 defect, "
-                        "complex64 inner cycles — the TPU fast path), "
+                        "complex64 inner cycles), "
                         "full multigrid (FMG nested-iteration start), or "
                         "even-odd Schur-preconditioned minimal residual "
                         "(no MG hierarchy)")
@@ -101,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "MX*MY <= len(jax.devices()))")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="disable the persistent on-disk XLA compilation "
-                        "cache (utils.compile.enable_persistent_cache; "
-                        "dir via TPU_MG_COMPILE_CACHE)")
+                        "cache used on the GPU (directory: "
+                        "$JAX_COMPILATION_CACHE_DIR, else .jax_cache in "
+                        "the checkout)")
     p.add_argument("--links", choices=["auto", "on", "off"], default="auto",
                    help="level-0 links-only (spin-projected) fast path: "
                         "auto = complex64 only (default), on = any dtype, "
@@ -158,7 +158,6 @@ def _run_geometric(ns) -> int:
                             smoother=ns.smoother)
         b = geo.geo_source(cfg)
         # mixed-precision defect correction: f32 V-cycles, f64 outer loop
-        # (the TPU-native mode; f64 is emulated on TPU)
         solve = geo.geo_solve_ir if ns.geo_ir else geo.geo_solve
     else:
         combine = "single" if ns.ntl_combine == "avg_coarse" else "divide"
@@ -201,8 +200,8 @@ def main(argv=None):
     if getattr(ns, "debug_nans", False):
         jax.config.update("jax_debug_nans", True)
     if not getattr(ns, "no_compile_cache", False):
-        # driver runs pay ~100 s of setup recompiles per process start;
-        # the on-disk XLA cache makes the second run's setup compile-free
+        # a second run with the same shapes loads its setup programs
+        # from disk instead of compiling them
         from .utils.compile import enable_persistent_cache
         enable_persistent_cache()
 
@@ -245,8 +244,10 @@ def main(argv=None):
 
     t0 = time.time()
     # U= -> level-0 links-only fast path in complex64 solves (cfg.links)
-    hier = mg.build_hierarchy(D, cfg, phi_null_init=phi_null_init, U=U)
-    print(f"setup done in {time.time() - t0:.1f}s")
+    hier = jax.block_until_ready(
+        mg.build_hierarchy(D, cfg, phi_null_init=phi_null_init, U=U))
+    t_setup = time.time() - t0
+    print(f"setup done in {t_setup:.1f}s")
 
     if cfg.gen_null and ns.checkpoint:
         saver = (mio.save_near_null_npz if ns.checkpoint.endswith(".npz")
@@ -257,6 +258,7 @@ def main(argv=None):
         print(f"wrote near-null checkpoint {ns.checkpoint}")
 
     # Self-test pass (reference f_MG_tests runs before every solve).
+    worst = None
     if not ns.skip_tests:
         checks = mg.testing.run_mg_tests(hier, cfg)
         worst = max(checks.values())
@@ -270,11 +272,15 @@ def main(argv=None):
         b0 = mg.point_source(cfg)
         tab = profiling.roofline_table(cfg, hier.levels[0].D, b0)
         print(f"roofline ({tab['device']}, peak "
-              f"{tab['peak_bytes_per_s']/1e9:.0f} GB/s):")
+              f"{tab['peak_bytes_per_s']/1e9:.0f} GB/s, "
+              f"{tab['peak_source']}):")
         for row in tab["rows"]:
+            share = row["roofline_share"]
             print(f"  {row['name']:16s} {row['sec']*1e6:9.1f} us  "
                   f"{row['bytes']/1e6:8.2f} MB  "
-                  f"{row['bw_frac']*100:6.1f}% of peak")
+                  f"{row['bytes_per_s']/1e9:8.1f} GB/s  "
+                  + ("(working set below 4x L2: no roofline share)"
+                     if share is None else f"{share*100:6.1f}% of peak"))
 
     b = mg.point_source(cfg)
     writer = mio.ResultsWriter(cfg, ns.out_dir)
@@ -340,6 +346,7 @@ def main(argv=None):
                    "nlevels": cfg.nlevels, "ntl": cfg.ntl,
                    "iters": out.iters, "resmag": out.resmag,
                    "converged": out.converged, "seconds": dt,
+                   "setup_seconds": t_setup, "self_tests_worst": worst,
                    "plaquette": [plaq.real, plaq.imag]}, f)
     return 0 if out.converged else 1
 

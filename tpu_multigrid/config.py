@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native 2D multigrid solver library.
+"""Configuration for the 2D adaptive multigrid solver library.
 
 Covers every knob of the reference code's parameter surface — both the 8
 positional CLI arguments and all compile-time constants (reference:
@@ -44,7 +44,7 @@ class MGConfig:
     # Smoother sweeps per level per half V-cycle (argv[2] in the reference).
     num_iters: int = 20
     # 'jacobi' matches the reference gs_flag=0 trajectory exactly;
-    # 'rbgs' is the TPU-idiomatic Gauss-Seidel (red/black ordering);
+    # 'rbgs' is the data-parallel Gauss-Seidel (red/black ordering);
     # 'gs_lex' is exact lexicographic GS via wavefront scan (validation mode).
     smoother: str = "rbgs"
     omega: float = 1.0  # damping for Jacobi/RBGS (1.0 = reference behavior)
@@ -102,16 +102,13 @@ class MGConfig:
     # The reference's early gens scan this (e.g. the single-null-vector
     # variant 2_U1_..._single_null.cpp has ndof_coarse=1).
     ndof_coarse: Optional[int] = None
-    dtype: str = "complex128"    # 'complex64' for roofline mode
-    # Pallas kernel dispatch: 'auto' uses the fused kernels where
-    # applicable (complex64 + fits VMEM + TPU backend), 'off' forces XLA.
-    pallas: str = "auto"
+    dtype: str = "complex128"    # 'complex64' for the fast cycle path
     # Level-0 links-only (spin-projected) fast path: when the hierarchy
     # carries the gauge links (build_hierarchy(..., U=U)), wilson level-0
     # smoother sweeps and residuals stream 4 link planes instead of the
     # 20 dense-D planes — identical math (ops/gauge_stencil.py, pinned by
-    # tests/test_gauge_stencil.py), ~3x less HBM traffic.
-    #   'auto' -> use it in complex64 (the production/roofline mode);
+    # tests/test_gauge_stencil.py), ~4x less device-memory traffic.
+    #   'auto' -> use it in complex64 (the production mode);
     #             complex128 validation runs keep the dense path so
     #             committed golden trajectories stay bit-stable.
     #   'on'   -> use whenever links are available (any dtype).
@@ -120,8 +117,8 @@ class MGConfig:
     # Sharded halo exchange schedule (parallel/halo.py): True issues the
     # four edge ppermutes first, computes the interior hop on local data,
     # and patches boundary rows/columns as edges land — XLA can overlap
-    # the ICI transfers with the interior stencil compute (SURVEY §5.8,
-    # §7.1). False is the permute-then-concatenate baseline.
+    # the device-to-device transfers with the interior stencil compute
+    # (SURVEY §5.8, §7.1). False is the permute-then-concatenate baseline.
     halo_overlap: bool = True
 
     def __post_init__(self):

@@ -4,7 +4,7 @@ The operator at every level is a gauge-covariant 5-point stencil stored as a
 complex array ``D[5, n, n, L, L]`` — direction index first (0=same, 1=+x,
 2=-x, 3=+y, 4=-y, matching the reference's D(X, idx) convention, level.h:8),
 dof indices next, lattice planes last so the per-direction (n x n) blocks are
-contiguous L x L planes that tile onto TPU vector registers.
+contiguous L x L planes that vectorise along the lattice.
 
 Math (reference level.h:131-175):
   laplace: D0 = -(4+m) I;  D_{+mu} = U_mu(x);  D_{-mu} = U_mu(x-mu)^dagger

@@ -13,7 +13,7 @@
 // method. Checkerboard ordering matches the Python fallback
 // (models/gauge.py heatbath_ensemble) so both produce valid ensembles.
 //
-// Build: g++ -O3 -march=native -shared -fPIC heatbath.cpp refio.cpp -o libtpumg.so
+// Build: g++ -O3 -shared -fPIC heatbath.cpp refio.cpp -o libmgnative.so
 
 #include <cmath>
 #include <cstdint>
@@ -98,7 +98,7 @@ extern "C" {
 
 // In-place heat-bath sweeps on theta[2*L*L]; checkerboard-ordered link
 // updates (mu-major, parity within mu).
-void tpumg_heatbath_run(double* theta, int L, double beta, int sweeps,
+void mgn_heatbath_run(double* theta, int L, double beta, int sweeps,
                         uint64_t seed) {
   Idx g{L};
   std::mt19937_64 rng(seed);
@@ -122,7 +122,7 @@ void tpumg_heatbath_run(double* theta, int L, double beta, int sweeps,
 }
 
 // Mean plaquette Re P over the lattice.
-double tpumg_mean_plaquette(const double* theta, int L) {
+double mgn_mean_plaquette(const double* theta, int L) {
   Idx g{L};
   double acc = 0.0;
   for (int x = 0; x < L; ++x) {

@@ -13,7 +13,7 @@ extern "C" {
 // Parse up to max_vals complex numbers from `path` (format: RE+iIM per
 // line). Writes interleaved (re, im) into out[2*k]. Returns the number of
 // complex values parsed, or -1 on open failure.
-long tpumg_read_complex_text(const char* path, double* out, long max_vals) {
+long mgn_read_complex_text(const char* path, double* out, long max_vals) {
   FILE* f = std::fopen(path, "r");
   if (!f) return -1;
   char buf[256];
@@ -39,7 +39,7 @@ long tpumg_read_complex_text(const char* path, double* out, long max_vals) {
 
 // Write n complex values (interleaved re, im) in the reference format.
 // Returns 0 on success, -1 on open failure.
-int tpumg_write_complex_text(const char* path, const double* vals, long n) {
+int mgn_write_complex_text(const char* path, const double* vals, long n) {
   FILE* f = std::fopen(path, "w");
   if (!f) return -1;
   for (long k = 0; k < n; ++k) {
@@ -51,7 +51,7 @@ int tpumg_write_complex_text(const char* path, const double* vals, long n) {
 
 // Parse one bare double per line (the heat-bath phase file format,
 // reference gauge.h:103-107). Returns count parsed or -1.
-long tpumg_read_phase_text(const char* path, double* out, long max_vals) {
+long mgn_read_phase_text(const char* path, double* out, long max_vals) {
   FILE* f = std::fopen(path, "r");
   if (!f) return -1;
   char buf[128];

@@ -4,7 +4,7 @@ The coarse operator keeps the same 5-point block-stencil format as the fine
 operator — the key invariant that makes the MG hierarchy recursive
 (reference f_compute_coarse_matrix, modules_main.h:81-185).
 
-TPU-first formulation: instead of looping blocks and testing face
+Data-parallel formulation: instead of looping blocks and testing face
 membership per site (the reference's `if (xf == base.x + block_x-1)`
 branches), we compute, for each stencil direction mu, the per-fine-site
 triple product  M_mu(x) = Phi(x) D_mu(x) Phi(x+mu)^dagger  as one batched

@@ -4,7 +4,7 @@ Near-null vectors are found by relaxing D x = 0 from a random start for
 `null_iters` sweeps, renormalizing globally every `iters_per_norm` sweeps
 (reference Level::f_near_null, level.h:177-249; 500 sweeps, renorm every 4).
 
-TPU-first twist: the nc (or nc/2 for Wilson) candidate vectors are
+Data-parallel twist: the nc (or nc/2 for Wilson) candidate vectors are
 independent given their random starts — we relax them all at once with
 `vmap` instead of the reference's sequential d1 loop.
 

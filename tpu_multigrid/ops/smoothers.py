@@ -5,7 +5,7 @@ Update rule (reference Level::f_relax, level.h:100-128):
     phi(x) <- -D0(x)^{-1} ( sum_{mu != 0} D_mu(x) phi(x+mu) - r(x) )
 
 - ``jacobi``  : buffered update; bit-matches the reference gs_flag=0 path.
-- ``rbgs``    : red/black-ordered Gauss-Seidel — the TPU-idiomatic GS with
+- ``rbgs``    : red/black-ordered Gauss-Seidel — the data-parallel GS with
   the same asymptotic smoothing factor as the reference's lexicographic GS
   (gs_flag=1) but a parallel iteration order.
 - ``gs_lex``  : exact lexicographic GS via a wavefront scan over diagonals —
@@ -58,7 +58,7 @@ def gs_lex_sweep(D, D0inv, phi, r, omega: float = 1.0):
     """Exact lexicographic Gauss-Seidel matching the reference's in-place
     site order — `for x { for y { update } }` (level.h:114-123).
 
-    TPU-friendly wavefront formulation: for the 5-point stencil, a site
+    Data-parallel wavefront formulation: for the 5-point stencil, a site
     (x, y)'s same-sweep dependencies (already-updated neighbors it reads:
     (x-1,y), (x,y-1), and the periodic wraps (0,y)<-(L-1,y),
     (x,0)<-(x,L-1)) all lie on anti-diagonals d' = x+y strictly smaller

@@ -8,13 +8,15 @@ prolongation its adjoint (reference near_null.h:217-264).
 
 Quadrant blocking (the key non-telescoping ingredient): quadrant q offsets
 the block origin by (0,0), (-1,0), (-1,-1), (0,-1) for q=1..4 (reference
-f_get_base_site, modules_indiv.h:6-14). On TPU this is a pair of `jnp.roll`s
+f_get_base_site, modules_indiv.h:6-14). Here this is a pair of `jnp.roll`s
 into the "block frame" where blocks are axis-aligned, followed by a reshape
 to [.., Lc, bx, Lc, by] — no gather/scatter needed.
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+
+from .stencil import HIGHEST
 
 # quad -> block-origin offset (ox, oy); base = block * Xc + offset.
 QUAD_OFFSETS = {1: (0, 0), 2: (-1, 0), 3: (-1, -1), 4: (0, -1)}
@@ -54,14 +56,16 @@ def restrict(phi_null: jnp.ndarray, vf: jnp.ndarray, quad: int,
     """vec_c[nc, Lc, Lc] = sum_block Phi vf (reference near_null.h:217-240)."""
     pb = _blocked(to_block_frame(phi_null, quad), bx, by)  # [nc,nf,Lc,bx,Lc,by]
     vb = _blocked(to_block_frame(vf, quad), bx, by)        # [nf,Lc,bx,Lc,by]
-    return jnp.einsum("cfXaYb,fXaYb->cXY", pb, vb)
+    return jnp.einsum("cfXaYb,fXaYb->cXY", pb, vb,
+                      precision=HIGHEST)
 
 
 def prolong(phi_null: jnp.ndarray, vc: jnp.ndarray, quad: int,
             bx: int, by: int) -> jnp.ndarray:
     """vec_f[nf, L, L] = Phi^dagger vec_c (reference near_null.h:242-264)."""
     pb = _blocked(to_block_frame(phi_null, quad), bx, by)
-    vfb = jnp.einsum("cfXaYb,cXY->fXaYb", jnp.conj(pb), vc)
+    vfb = jnp.einsum("cfXaYb,cXY->fXaYb", jnp.conj(pb), vc,
+                     precision=HIGHEST)
     nf = vfb.shape[0]
     Lx, Ly = vfb.shape[1] * vfb.shape[2], vfb.shape[3] * vfb.shape[4]
     return from_block_frame(vfb.reshape(nf, Lx, Ly), quad)
@@ -87,7 +91,8 @@ def block_dot(u: jnp.ndarray, v: jnp.ndarray, quad: int, bx: int, by: int):
     """Per-block complex dot <u, v> = sum_block conj(u)·v : [Lc, Lc]."""
     ub = _blocked(to_block_frame(u, quad), bx, by)
     vb = _blocked(to_block_frame(v, quad), bx, by)
-    return jnp.einsum("fXaYb,fXaYb->XY", jnp.conj(ub), vb)
+    return jnp.einsum("fXaYb,fXaYb->XY", jnp.conj(ub), vb,
+                      precision=HIGHEST)
 
 
 def ortho_pass(phi_null: jnp.ndarray, quad: int, bx: int, by: int):

@@ -2,10 +2,10 @@
 
 The L x L torus is block-partitioned over mesh axes ('x', 'y'); the 5-point
 stencil needs a width-1 halo of neighbor sites, exchanged with
-`jax.lax.ppermute` — the ICI collective-permute. The periodic lattice maps
-directly onto the TPU torus (SURVEY.md §5.7-5.8; the reference is
-single-process, modules_main.h has no comms, so this whole module is new
-TPU-native capability).
+`jax.lax.ppermute`, which XLA hands to NCCL on the GPU. The lattice's
+periodic boundary wraps the mesh axes cyclically (SURVEY.md §5.7-5.8; the
+reference is single-process, modules_main.h has no comms, so this whole
+module is new capability).
 
 All functions here are meant to run INSIDE `jax.shard_map` with the lattice
 axes of every field sharded as P(..., 'x', 'y').
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..config import SAME, XP, XM, YP, YM
+from ..ops.stencil import _site_matvec
 
 AXIS_X = "x"   # mesh axis partitioning the lattice x (array axis -2)
 AXIS_Y = "y"   # mesh axis partitioning the lattice y (array axis -1)
@@ -70,10 +71,10 @@ def roll_halo(v: jnp.ndarray, shift: int, axis: int) -> jnp.ndarray:
 def apply_hop_sharded_concat(D, v):
     """Baseline hop: ppermute each edge, concatenate, then contract —
     the boundary columns serialize behind the permutes."""
-    out = jnp.einsum("ijxy,jxy->ixy", D[XP], shift_halo(v, XP))
-    out += jnp.einsum("ijxy,jxy->ixy", D[XM], shift_halo(v, XM))
-    out += jnp.einsum("ijxy,jxy->ixy", D[YP], shift_halo(v, YP))
-    out += jnp.einsum("ijxy,jxy->ixy", D[YM], shift_halo(v, YM))
+    out = _site_matvec(D[XP], shift_halo(v, XP))
+    out += _site_matvec(D[XM], shift_halo(v, XM))
+    out += _site_matvec(D[YP], shift_halo(v, YP))
+    out += _site_matvec(D[YM], shift_halo(v, YM))
     return out
 
 
@@ -95,7 +96,7 @@ def apply_hop_sharded_overlap(D, v):
     depends only on local data — is computed, and finally the boundary
     row/column contributions are patched in as the edges land. The
     interior einsum has no data dependence on the permutes, so XLA's
-    latency-hiding scheduler can run the ICI transfers concurrently with
+    latency-hiding scheduler can run the transfers concurrently with
     the interior stencil compute. Identical math to the concat path
     (same per-site contractions; only the association of the boundary
     terms differs) — pinned by tests/test_parallel.py."""
@@ -108,20 +109,20 @@ def apply_hop_sharded_overlap(D, v):
     xm_i = jnp.concatenate([zrow, v[..., :-1, :]], axis=-2)
     yp_i = jnp.concatenate([v[..., :, 1:], zcol], axis=-1)
     ym_i = jnp.concatenate([zcol, v[..., :, :-1]], axis=-1)
-    out = jnp.einsum("ijxy,jxy->ixy", D[XP], xp_i)
-    out += jnp.einsum("ijxy,jxy->ixy", D[XM], xm_i)
-    out += jnp.einsum("ijxy,jxy->ixy", D[YP], yp_i)
-    out += jnp.einsum("ijxy,jxy->ixy", D[YM], ym_i)
+    out = _site_matvec(D[XP], xp_i)
+    out += _site_matvec(D[XM], xm_i)
+    out += _site_matvec(D[YP], yp_i)
+    out += _site_matvec(D[YM], ym_i)
 
     # boundary patch: the one row/column each direction missed
     out = out.at[..., -1:, :].add(
-        jnp.einsum("ijxy,jxy->ixy", D[XP][..., -1:, :], ex_p))
+        _site_matvec(D[XP][..., -1:, :], ex_p))
     out = out.at[..., :1, :].add(
-        jnp.einsum("ijxy,jxy->ixy", D[XM][..., :1, :], ex_m))
+        _site_matvec(D[XM][..., :1, :], ex_m))
     out = out.at[..., :, -1:].add(
-        jnp.einsum("ijxy,jxy->ixy", D[YP][..., :, -1:], ey_p))
+        _site_matvec(D[YP][..., :, -1:], ey_p))
     out = out.at[..., :, :1].add(
-        jnp.einsum("ijxy,jxy->ixy", D[YM][..., :, :1], ey_m))
+        _site_matvec(D[YM][..., :, :1], ey_m))
     return out
 
 
@@ -134,7 +135,7 @@ def apply_hop_sharded(D, v, overlap: bool = True):
 
 
 def apply_D_sharded(D, v, overlap: bool = True):
-    return (jnp.einsum("ijxy,jxy->ixy", D[SAME], v)
+    return (_site_matvec(D[SAME], v)
             + apply_hop_sharded(D, v, overlap))
 
 
@@ -164,8 +165,7 @@ def _global_parity_offset(dtype):
 
 def jacobi_sweep_sharded(D, D0inv, phi, r, omega: float = 1.0,
                          overlap: bool = True):
-    new = -jnp.einsum("ijxy,jxy->ixy", D0inv,
-                      apply_hop_sharded(D, phi, overlap) - r)
+    new = -_site_matvec(D0inv, apply_hop_sharded(D, phi, overlap) - r)
     if omega == 1.0:
         return new
     return phi + omega * (new - phi)
@@ -180,11 +180,9 @@ def rbgs_sweep_sharded(D, D0inv, phi, r, omega: float = 1.0,
     y = jnp.arange(ly)[None, :]
     par = ((x + y) % 2).astype(phi.real.dtype)
     red, black = (1.0 - par)[None], par[None]
-    upd = -jnp.einsum("ijxy,jxy->ixy", D0inv,
-                      apply_hop_sharded(D, phi, overlap) - r)
+    upd = -_site_matvec(D0inv, apply_hop_sharded(D, phi, overlap) - r)
     phi = phi + omega * red * (upd - phi)
-    upd = -jnp.einsum("ijxy,jxy->ixy", D0inv,
-                      apply_hop_sharded(D, phi, overlap) - r)
+    upd = -_site_matvec(D0inv, apply_hop_sharded(D, phi, overlap) - r)
     phi = phi + omega * black * (upd - phi)
     return phi
 
@@ -201,10 +199,9 @@ def chebyshev_smooth_sharded(D, D0inv, phi, r, degree: int, lmin: float,
     sigma1 = theta / delta
 
     def A(v):
-        return jnp.einsum("ijxy,jxy->ixy", D0inv,
-                          apply_D_sharded(D, v, overlap))
+        return _site_matvec(D0inv, apply_D_sharded(D, v, overlap))
 
-    f = jnp.einsum("ijxy,jxy->ixy", D0inv, r)
+    f = _site_matvec(D0inv, r)
     d = (f - A(phi)) / theta
     x = phi + d
     rho0 = jnp.asarray(1.0 / sigma1, phi.real.dtype)

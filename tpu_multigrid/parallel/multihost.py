@@ -1,15 +1,13 @@
-"""Multi-host scaffolding (SURVEY.md §5.8): jax.distributed bring-up and
-process-spanning mesh construction.
+"""Multi-process scaffolding (SURVEY.md §5.8): jax.distributed bring-up
+and process-spanning mesh construction.
 
-On a TPU pod slice each host sees a subset of chips; `initialize()` wires
-the JAX distributed runtime (coordinator + process ids from the TPU
-environment) and `global_mesh` builds the ('x','y') lattice mesh over ALL
-devices so the shard_map solver in parallel/sharded.py runs unchanged —
-halo `ppermute`s ride ICI within a host and DCN across hosts, with the
-same program.
+`initialize()` wires the JAX distributed runtime from an explicit
+coordinator address, process count and process id, and `global_mesh`
+builds the ('x','y') lattice mesh over ALL devices so the shard_map solver
+in parallel/sharded.py runs unchanged across processes.
 
-Single-host (or single-chip) environments degrade gracefully: initialize
-becomes a no-op and the mesh covers the local devices.
+Without a coordinator address initialize is a no-op and the mesh covers
+the local devices (one process driving all cards of a host).
 """
 from __future__ import annotations
 
@@ -23,37 +21,23 @@ from .halo import AXIS_X, AXIS_Y
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> bool:
-    """Initialize jax.distributed if in a multi-process environment.
-    Returns True if distributed mode is active."""
+    """Initialize jax.distributed when a coordinator address is given
+    (JAX finds no cluster by itself here). Returns True if distributed
+    mode is active; initialization errors propagate."""
     import jax
-    try:
-        if coordinator_address is not None:
-            jax.distributed.initialize(coordinator_address=coordinator_address,
-                                       num_processes=num_processes,
-                                       process_id=process_id)
-            return True
-        # TPU pods: env-based auto-detection (no-op off-pod).
-        import os
-        if os.environ.get("TPU_WORKER_HOSTNAMES") or \
-                os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"):
-            if jax.process_count() > 1:
-                return True
-            jax.distributed.initialize()
-            return jax.process_count() > 1
-    except Exception as e:
-        # Do not swallow silently: a genuinely misconfigured pod should
-        # be visible, not degrade quietly to single-host (VERDICT r4
-        # weak #5). Still returns False — callers treat init failure as
-        # "run single-host".
-        import logging
-        logging.getLogger(__name__).warning(
-            "jax.distributed initialization failed; falling back to "
-            "single-host: %r", e)
-    return False
+    if coordinator_address is None:
+        return False
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
+    return True
 
 
 def mesh_shape_for(n_devices: int) -> Tuple[int, int]:
-    """Near-square 2D factorization (prefers the torus-friendly split)."""
+    """Near-square 2D factorization of the device count: the lattice is
+    square, so a near-square split keeps each shard's halo perimeter
+    smallest. Every card reaches every other at the same rate, so the
+    split follows the lattice alone."""
     mx = int(np.floor(np.sqrt(n_devices)))
     while n_devices % mx:
         mx -= 1

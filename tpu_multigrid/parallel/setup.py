@@ -168,9 +168,9 @@ def build_hierarchy_sharded(D0: jnp.ndarray, cfg: MGConfig, mesh: Mesh,
                 D0inv = site_inverse(D[0])
                 vecs = _relax_null_sharded(D, D0inv, starts, cfg)
                 pn = candidates_to_phi_null(vecs, cfg.stencil, nc)
-                # HIGHEST matmul precision for ortho + Galerkin — same
-                # bf16-default pitfall as the single-device setup
-                # (hierarchy._setup_level_core)
+                # HIGHEST matmul precision for ortho + Galerkin: TF32
+                # on the GPU is too coarse for them, as in the
+                # single-device setup (hierarchy._setup_level_core)
                 with jax.default_matmul_precision("highest"):
                     pn = jnp.stack([
                         _block_normalize_sharded(pn[d], cfg.quad, bx, by)

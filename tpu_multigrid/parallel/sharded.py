@@ -14,7 +14,7 @@ Design (SURVEY.md §5.7-5.8, §7.1):
   shards; the quadrant offsets (q=2..4) cost one halo roll each.
 
 The reference has no distribution at all (§2.3); this module is the
-TPU-native scaling layer.
+multi-device scaling layer.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..config import MGConfig
 from ..ops import transfer
 from ..ops.smoothers import smooth
-from ..ops.stencil import apply_D, residual
+from ..ops.stencil import HIGHEST, apply_D, residual
 from ..solver.hierarchy import Hierarchy, LevelOps, NTLOps
 from ..solver.cycles import min_res_weights
 from . import halo
@@ -122,13 +122,14 @@ def _restrict_sharded(phi_null, vf, quad, bx, by):
     vb = _quad_roll_sharded(vf, quad, fwd=True)
     pb = transfer._blocked(pn, bx, by)
     vbb = transfer._blocked(vb, bx, by)
-    return jnp.einsum("cfXaYb,fXaYb->cXY", pb, vbb)
+    return jnp.einsum("cfXaYb,fXaYb->cXY", pb, vbb, precision=HIGHEST)
 
 
 def _prolong_sharded(phi_null, vc, quad, bx, by):
     pn = _quad_roll_sharded(phi_null, quad, fwd=True)
     pb = transfer._blocked(pn, bx, by)
-    vfb = jnp.einsum("cfXaYb,cXY->fXaYb", jnp.conj(pb), vc)
+    vfb = jnp.einsum("cfXaYb,cXY->fXaYb", jnp.conj(pb), vc,
+                     precision=HIGHEST)
     nf = vfb.shape[0]
     lx, ly = vfb.shape[1] * vfb.shape[2], vfb.shape[3] * vfb.shape[4]
     vf = vfb.reshape(nf, lx, ly)

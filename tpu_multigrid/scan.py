@@ -1,4 +1,4 @@
-"""Parameter-scan orchestrator: the TPU-native analog of the reference's
+"""Parameter-scan orchestrator: the in-process analog of the reference's
 submission notebook (code/0_submit_2d_laplace.ipynb cells 3-7), which
 compiles the solver once and loops `./a.out L m nlevels n_iters` over
 nested parameter lists, accumulating per-run summary lines in

@@ -18,7 +18,8 @@ import jax
 import jax.numpy as jnp
 
 from ..config import MGConfig
-from ..ops.stencil import apply_D, residual, _sumsq
+from ..ops import gauge_stencil as gs
+from ..ops.stencil import HIGHEST, apply_D, residual, _sumsq
 from ..ops.smoothers import smooth
 from ..ops.transfer import restrict, prolong
 from .hierarchy import Hierarchy
@@ -43,30 +44,8 @@ def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
         return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, "chebyshev",
                       cheby_interval=cfg.cheby_intervals[lvl])
     if links_active(cfg, gauge, lvl) and cfg.smoother in ("jacobi", "rbgs"):
-        from ..ops import pallas_stencil as ps
-        from ..ops import gauge_stencil as gs
-        if cfg.pallas == "auto" and cfg.omega == 1.0:
-            mode = ps.u_mode(phi.dtype, phi.shape[-1])
-            if mode == "vmem":
-                return ps.wilson_u_smooth_pallas(gauge, cfg.m, phi, r,
-                                                 cfg.num_iters, cfg.smoother)
-            if mode == "tiled":
-                return ps.wilson_u_smooth_pallas_tiled(
-                    gauge, cfg.m, phi, r, cfg.num_iters, cfg.smoother)
         return gs.smooth_u(cfg.stencil, gauge, cfg.m, phi, r,
                            cfg.num_iters, cfg.smoother, cfg.omega)
-    if (cfg.pallas == "auto" and cfg.omega == 1.0
-            and cfg.smoother in ("jacobi", "rbgs")):
-        from ..ops import pallas_stencil as ps
-        n, L = phi.shape[0], phi.shape[-1]
-        mode = ps.smoother_mode(phi.dtype, n, L)
-        if mode == "vmem":
-            fn = (ps.jacobi_smooth_pallas if cfg.smoother == "jacobi"
-                  else ps.rbgs_smooth_pallas)
-            return fn(lev.D, lev.D0inv, phi, r, cfg.num_iters)
-        if mode == "tiled":
-            return ps.smooth_pallas_tiled(lev.D, lev.D0inv, phi, r,
-                                          cfg.num_iters, cfg.smoother)
     return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, cfg.smoother,
                   cfg.omega)
 
@@ -74,13 +53,6 @@ def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
 def _residual0(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
     """Level residual with the links-only fast path at level 0."""
     if links_active(cfg, gauge, lvl):
-        from ..ops import pallas_stencil as ps
-        from ..ops import gauge_stencil as gs
-        if cfg.pallas == "auto":
-            mode = ps.u_mode(phi.dtype, phi.shape[-1])
-            if mode:
-                return ps.wilson_u_residual_pallas(gauge, cfg.m, phi, r,
-                                                   mode)
         return gs.residual_u(cfg.stencil, gauge, cfg.m, phi, r)
     return residual(lev.D, phi, r)
 
@@ -173,14 +145,16 @@ def min_res_weights(D_f, r_f, xs: jnp.ndarray, cfg: MGConfig):
     (reference uses colPivHouseholderQr, modules_main.h:371).
     """
     Dx = jax.vmap(lambda x: apply_D(D_f, x))(xs)          # [q, nf, S, S]
-    A = jnp.einsum("pnxy,qnxy->pq", jnp.conj(xs), Dx)
+    A = jnp.einsum("pnxy,qnxy->pq", jnp.conj(xs), Dx, precision=HIGHEST)
     mode = cfg.minres_src
     if mode == "auto":
         mode = "r_dot_dx" if cfg.stencil == "wilson" else "x_dot_r"
     if mode == "x_dot_r":
-        src = jnp.einsum("pnxy,nxy->p", jnp.conj(xs), r_f)
+        src = jnp.einsum("pnxy,nxy->p", jnp.conj(xs), r_f,
+                         precision=HIGHEST)
     elif mode == "r_dot_dx":
-        src = jnp.einsum("nxy,pnxy->p", jnp.conj(r_f), Dx)
+        src = jnp.einsum("nxy,pnxy->p", jnp.conj(r_f), Dx,
+                         precision=HIGHEST)
     else:
         raise ValueError(f"bad minres_src {mode!r}")
     return jnp.linalg.solve(A, src)
@@ -253,7 +227,8 @@ def ntl_cycle(hier: Hierarchy, phis: Tuple, b: jnp.ndarray, cfg: MGConfig):
             a = min_res_weights(L[l].D, rs[l], xs, cfg)
         else:   # 'avg_prolong'
             a = jnp.full((nq,), 1.0 / nq, dtype=xs.dtype)
-        phis[l] = phis[l] + jnp.einsum("q,qnxy->nxy", a, xs)
+        phis[l] = phis[l] + jnp.einsum("q,qnxy->nxy", a, xs,
+                                       precision=HIGHEST)
 
     # Up sweep from the next-to-coarsest level.
     for l in range(n - 1, -1, -1):

@@ -4,7 +4,7 @@ The reference measures operator spectra by materializing the dense
 (n L^2) x (n L^2) matrix in a notebook and calling numpy.linalg.eigvals
 (analysis_nbks/spectrum_calc/1_compute_spectrum.ipynb) — O(L^6), only
 feasible for tiny lattices. These matrix-free estimators run the same
-measurements at any L as a handful of stencil applications on the TPU:
+measurements at any L as a handful of stencil applications on the device:
 
 - `power_extreme`   : largest |lambda| of ANY operator (power iteration).
 - `lanczos_extremes`: extremal eigenvalues of a HERMITIAN operator

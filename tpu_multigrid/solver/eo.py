@@ -17,7 +17,7 @@ half the sites, and for Wilson-like operators spec(S) = {d - h^2/d}
 squares the hopping contribution — roughly squaring the convergence rate
 of relaxation/Krylov methods while halving the work per application.
 
-TPU-native formulation: fields stay full [n, L, L] arrays with parity
+Formulation: fields stay full [n, L, L] arrays with parity
 *support* instead of packed half-lattices — `apply_hop` maps an
 even-supported field to an odd-supported one by construction (every
 neighbor of an even site is odd), so no masking is needed inside the

@@ -188,7 +188,7 @@ class Geo2Config(GeoConfig):
     num_iters: int = 20
     max_iters: int = 5000
     res_threshold: float = 1.0e-13
-    smoother: str = "gs_lex"   # reference gs_flag=1; 'rbgs' = TPU mode
+    smoother: str = "gs_lex"   # reference gs_flag=1; 'rbgs' = parallel
     t_flag: bool = True        # non-telescoping bottom level
     n_copies: int = 2          # hardcoded at :266
     quad: int = 1              # telescoping-path quadrant (:269)
@@ -305,11 +305,10 @@ def geo_solve_ir(b, cfg: GeoConfig, max_iters: Optional[int] = None,
     """Mixed-precision geometric solve: f32 V-cycles as the error solver
     inside an f64 defect-correction (iterative-refinement) outer loop.
 
-    TPU rationale: f64 is software-emulated on TPU (slow), but the
-    reference's gen-1 thresholds (sum|r| at 2048^2) sit near the f64
-    rounding floor. Defect correction reaches f64-level residuals while
-    doing ~all the work (num_iters smoother sweeps x nlevels per cycle)
-    in fast f32: per outer iteration only ONE f64 residual + one f64 axpy
+    Rationale: the reference's gen-1 thresholds (sum|r| at 2048^2) sit
+    near the f64 rounding floor. Defect correction reaches f64-level
+    residuals while doing ~all the work (num_iters smoother sweeps x
+    nlevels per cycle) in f32, half the bytes of f64: per outer iteration only ONE f64 residual + one f64 axpy
     runs at level 0. Same contraction per cycle as geo_solve once above
     the f32 floor; the f64 outer loop then keeps contracting below it.
 

@@ -5,7 +5,7 @@ vectors, via gen_null=0/1) and gauge fields. This module covers that
 surface (see utils/io.py for the reference text formats) PLUS full
 solver-state checkpointing the reference lacks: hierarchy + solution
 vectors + iteration counter in one npz, so long solves can resume after
-preemption — standard practice for production TPU jobs.
+preemption.
 """
 from __future__ import annotations
 
@@ -85,7 +85,7 @@ def _state_pytree(hier: Hierarchy, phis, it: int, resmag: float):
 
 def save_solver_state_orbax(path: str, hier: Hierarchy, phis, it: int,
                             resmag: float):
-    """TPU-native checkpoint via orbax: arrays are written per-shard with
+    """Checkpoint via orbax: arrays are written per-shard with
     their shardings, so a hierarchy living distributed on a device mesh
     (parallel/sharded.py) checkpoints without gathering to host — the
     multi-host analog of the reference's near-null text checkpoint
